@@ -1,8 +1,8 @@
-// stereo_io — native data-loading runtime for stereo_reconstruction_tpu.
+// stereo_io — native data-loading runtime for stereo_reconstruction.
 //
 // The reference implementation's data layer is native C++ (OpenCV imread +
 // the Middlebury SDK's imageLib PFM reader, see reference
-// src/DataLoader/data_loader.cpp). This library is its TPU-framework
+// src/DataLoader/data_loader.cpp). This library is its framework
 // equivalent: a dependency-light C++17 loader (PNG via zlib inflate, PFM,
 // calib.txt) with a std::thread prefetch pool, exposed through a C ABI for
 // ctypes binding (no pybind11 in this environment).

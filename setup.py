@@ -1,7 +1,7 @@
 """Build hook: compile the native IO runtime into the package.
 
 Metadata lives in pyproject.toml; this only adds the `make -C native`
-step (native/stereo_io.cpp -> stereo_reconstruction_tpu/io/
+step (native/stereo_io.cpp -> stereo_reconstruction/io/
 libstereo_io.so) to build_py so wheels and editable installs ship the
 native PNG/PFM/prefetch runtime. A missing toolchain degrades to the
 pure-Python IO fallback (io/native.py) with a warning, not a failure.
@@ -29,7 +29,7 @@ class BuildWithNative(build_py):
                 f"warning: native IO build failed ({exc}); the package "
                 "will use the pure-Python IO fallback\n")
         if os.path.exists(so):
-            dest = os.path.join(ROOT, "stereo_reconstruction_tpu", "io",
+            dest = os.path.join(ROOT, "stereo_reconstruction", "io",
                                 "libstereo_io.so")
             shutil.copy2(so, dest)
         super().run()

@@ -10,14 +10,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from stereo_reconstruction_tpu.config import BundleAdjustmentConfig
-from stereo_reconstruction_tpu.ops import geometry as geo
-from stereo_reconstruction_tpu.parallel.ba_multiview import (
+from stereo_reconstruction.config import BundleAdjustmentConfig
+from stereo_reconstruction.ops import geometry as geo
+from stereo_reconstruction.parallel.ba_multiview import (
     distributed_multiview_bundle_adjust,
     fuse_point_cloud,
     multiview_bundle_adjust,
 )
-from stereo_reconstruction_tpu.parallel.mesh import make_mesh
+from stereo_reconstruction.parallel.mesh import make_mesh
 
 
 def _synthetic_sequence(rng, M=4, n_grid=6):

@@ -16,14 +16,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.config import (
+from stereo_reconstruction.config import (
     BundleAdjustmentConfig,
     PipelineConfig,
     RansacConfig,
 )
-from stereo_reconstruction_tpu.ops import geometry as geo
-from stereo_reconstruction_tpu.pose.pipeline import estimate_pose_from_matches
-from stereo_reconstruction_tpu.utils.batch import aggregate_metrics, run_batch
+from stereo_reconstruction.ops import geometry as geo
+from stereo_reconstruction.pose.pipeline import estimate_pose_from_matches
+from stereo_reconstruction.utils.batch import aggregate_metrics, run_batch
 
 
 @dataclasses.dataclass

@@ -9,14 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.config import BriskConfig, OrbConfig
-from stereo_reconstruction_tpu.ops.binary_features import (
+from stereo_reconstruction.config import BriskConfig, OrbConfig
+from stereo_reconstruction.ops.binary_features import (
     _brisk_pattern,
     detect_and_describe_brisk,
     detect_and_describe_orb,
 )
-from stereo_reconstruction_tpu.ops.features import Keypoints
-from stereo_reconstruction_tpu.ops.matching import match_descriptors_binary
+from stereo_reconstruction.ops.features import Keypoints
+from stereo_reconstruction.ops.matching import match_descriptors_binary
 
 
 def _texture(h, w, seed=0):

@@ -1,5 +1,5 @@
-"""Validate the TPU block search against the literal NumPy oracle of the
-reference BlockSearch (see stereo_reconstruction_tpu/oracle.py).
+"""Validate the device block search against the literal NumPy oracle of the
+reference BlockSearch (see stereo_reconstruction/oracle.py).
 
 Small random images keep the O(H*W*D*B^2) loop oracle tractable; natural
 image crops are covered by the integration test in test_pipeline_config1.
@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu import oracle
-from stereo_reconstruction_tpu.config import MatcherConfig
-from stereo_reconstruction_tpu.ops import block_search, cost_volume as cv, smoothing
+from stereo_reconstruction import oracle
+from stereo_reconstruction.config import MatcherConfig
+from stereo_reconstruction.ops import block_search, cost_volume as cv, smoothing
 
 
 def _random_stereo(rng, h=40, w=56, max_d=12, noise=6):

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from jax.experimental import checkify
 
-from stereo_reconstruction_tpu.utils import debug
+from stereo_reconstruction.utils import debug
 
 
 def test_guard_raises_under_checked():

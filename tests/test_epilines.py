@@ -6,7 +6,7 @@ Covers the reference computeEpiLines/drawEpilines/drawRectifiedEpilines
 
 import numpy as np
 
-from stereo_reconstruction_tpu.rectify.epilines import (
+from stereo_reconstruction.rectify.epilines import (
     draw_epilines,
     draw_rectified_epilines,
     epipolar_lines,

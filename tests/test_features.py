@@ -9,13 +9,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.config import FrontendConfig
-from stereo_reconstruction_tpu.ops.features import (
+from stereo_reconstruction.config import FrontendConfig
+from stereo_reconstruction.ops.features import (
     detect_and_describe,
     gaussian_blur,
     rgb_to_gray,
 )
-from stereo_reconstruction_tpu.ops.matching import (
+from stereo_reconstruction.ops.matching import (
     match_descriptors,
     matches_to_homogeneous,
 )

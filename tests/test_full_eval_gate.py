@@ -50,8 +50,8 @@ def test_live_crop_matcher_parity(middeval_root):
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
     from full_eval import matcher_parity
 
-    from stereo_reconstruction_tpu.data import MiddEval3
-    from stereo_reconstruction_tpu.data.middeval3 import downsample_pair
+    from stereo_reconstruction.data import MiddEval3
+    from stereo_reconstruction.data.middeval3 import downsample_pair
 
     pair = downsample_pair(MiddEval3(middeval_root).load_training(13))
     L = np.asarray(pair.image_left, np.uint8)[100:180, 100:356]

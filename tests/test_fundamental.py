@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.ops import geometry as geo
-from stereo_reconstruction_tpu.pose.fundamental import (
+from stereo_reconstruction.ops import geometry as geo
+from stereo_reconstruction.pose.fundamental import (
     eight_point_fundamental,
     ransac_fundamental,
     sampson_distance,

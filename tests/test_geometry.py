@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.ops import geometry as geo
+from stereo_reconstruction.ops import geometry as geo
 
 
 def test_skew():

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from stereo_reconstruction_tpu.data.hitnet import (
+from stereo_reconstruction.data.hitnet import (
     PrecomputedDisparities,
     average_disparity,
     read_grayscale_disparity,
@@ -85,9 +85,9 @@ def test_rescale_to_gt_mean():
 def test_real_hitnet_reconstruction(middeval_root):
     """Full RUN_ALL=0 flow on real artifacts: HitNet disparity -> GT-mean
     rescale -> depth -> mesh grid (test_reconstruction.cpp:103-138)."""
-    from stereo_reconstruction_tpu.config import PipelineConfig, ReconConfig
-    from stereo_reconstruction_tpu.data import MiddEval3
-    from stereo_reconstruction_tpu.pipeline import reconstruct_from_disparity
+    from stereo_reconstruction.config import PipelineConfig, ReconConfig
+    from stereo_reconstruction.data import MiddEval3
+    from stereo_reconstruction.pipeline import reconstruct_from_disparity
 
     ds = MiddEval3(middeval_root)
     pd = PrecomputedDisparities(REFERENCE_RESULTS)

@@ -3,15 +3,15 @@ import os
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.io import (
+from stereo_reconstruction.io import (
     parse_calib,
     read_image,
     read_pfm,
     write_image,
     write_pfm,
 )
-from stereo_reconstruction_tpu.io.image import disparity_png_roundtrip
-from stereo_reconstruction_tpu.io.mesh_io import read_off, write_off
+from stereo_reconstruction.io.image import disparity_png_roundtrip
+from stereo_reconstruction.io.mesh_io import read_off, write_off
 
 
 def test_pfm_roundtrip_gray(tmp_path, rng):

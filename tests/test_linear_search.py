@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from stereo_reconstruction_tpu import oracle
-from stereo_reconstruction_tpu.ops.linear_search import linear_search
+from stereo_reconstruction import oracle
+from stereo_reconstruction.ops.linear_search import linear_search
 
 
 def test_linear_search_matches_oracle(rng):

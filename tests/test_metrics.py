@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from stereo_reconstruction_tpu.ops import metrics
+from stereo_reconstruction.ops import metrics
 
 
 def _numpy_evaldisp(disp, gt, mask, badthresh, maxdisp, rounddisp):

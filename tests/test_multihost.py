@@ -2,7 +2,7 @@
 
 Produced by ``tools/multihost_bench.py``: 2 core-pinned CPU processes
 joined with ``jax.distributed`` (Gloo collectives — the CPU stand-in for
-ICI/DCN), running the production sharded entry points unchanged. This is
+NCCL), running the production sharded entry points unchanged. This is
 the "2+ hosts" leg of the north-star scaling target; SCALING.json covers
 the single-process virtual-mesh leg. Regenerate with:
 
@@ -62,7 +62,7 @@ def test_cross_process_correctness(report):
 
 def test_it_was_really_multiprocess(report):
     assert report["processes"] >= 2
-    assert "gloo" in report["backend"] or "tpu" in report["backend"]
+    assert "gloo" in report["backend"]
 
 
 def test_oversubscribed_groups(report):

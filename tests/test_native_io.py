@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.io import native
-from stereo_reconstruction_tpu.io.image import read_image, write_image
-from stereo_reconstruction_tpu.io.pfm import read_pfm as py_read_pfm, write_pfm as py_write_pfm
+from stereo_reconstruction.io import native
+from stereo_reconstruction.io.image import read_image, write_image
+from stereo_reconstruction.io.pfm import read_pfm as py_read_pfm, write_pfm as py_write_pfm
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="libstereo_io.so not built (make -C native)"

@@ -15,16 +15,16 @@ REPO = os.path.join(os.path.dirname(__file__), "..")
 def test_pyproject_declares_console_script():
     with open(os.path.join(REPO, "pyproject.toml")) as f:
         text = f.read()
-    assert 'stereo = "stereo_reconstruction_tpu.cli:main"' in text
+    assert 'stereo = "stereo_reconstruction.cli:main"' in text
 
 
 def test_cli_entry_point_importable():
-    from stereo_reconstruction_tpu.cli import main
+    from stereo_reconstruction.cli import main
     assert callable(main)
 
 
 def test_sdist_like_build_py_hook_compiles_native():
     # the hook copies native/libstereo_io.so into the io package; after an
     # editable install (CI runs `make -C native` anyway) the loader finds it
-    from stereo_reconstruction_tpu.io.native import load_library
+    from stereo_reconstruction.io.native import load_library
     assert load_library() is not None

@@ -1,6 +1,6 @@
 """Perceptual (VGG/LPIPS) matcher tests.
 
-Covers the TPU re-design of the reference notebook's perceptual window
+Covers the re-design of the reference notebook's perceptual window
 search (perceptual_window_search/Perceptual_window_search.ipynb cells
 6-10): feature tower shapes, LPIPS normalization, cost-volume validity
 and shift recovery, the notebook's multiplicative smoothing, weight
@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.config import PerceptualConfig, PipelineConfig
-from stereo_reconstruction_tpu.perceptual import (
+from stereo_reconstruction.config import PerceptualConfig, PipelineConfig
+from stereo_reconstruction.perceptual import (
     get_params,
     init_vgg16_params,
     load_params_npz,
@@ -24,8 +24,8 @@ from stereo_reconstruction_tpu.perceptual import (
     save_params_npz,
     vgg16_features,
 )
-from stereo_reconstruction_tpu.perceptual.cost import perceptual_smooth_argmin
-from stereo_reconstruction_tpu.perceptual.vgg import (
+from stereo_reconstruction.perceptual.cost import perceptual_smooth_argmin
+from stereo_reconstruction.perceptual.vgg import (
     STAGE_CHANNELS,
     STAGE_STRIDES,
     convert_torch_lpips,
@@ -155,7 +155,7 @@ def test_convert_torch_lpips_layout(rng):
 
 def test_pipeline_dispatch_perceptual(rng):
     """compute_disparity routes cost=='perceptual' through the LPIPS search."""
-    from stereo_reconstruction_tpu.pipeline import compute_disparity
+    from stereo_reconstruction.pipeline import compute_disparity
 
     config = PipelineConfig()
     config = config.replace(
@@ -176,8 +176,8 @@ def test_windowed_search_matches_notebook_oracle_exactly(params, rng):
     device program (VERDICT r2 item 3): on a small pair with identical
     He-init weights it must track the literal notebook oracle to f32-vs-
     f64 score noise — gated at 100% 2px / >=98% exact agreement."""
-    from stereo_reconstruction_tpu.perceptual import windowed_lpips_search
-    from stereo_reconstruction_tpu.perceptual.notebook_oracle import (
+    from stereo_reconstruction.perceptual import windowed_lpips_search
+    from stereo_reconstruction.perceptual.notebook_oracle import (
         notebook_window_search,
     )
 
@@ -204,7 +204,7 @@ def test_windowed_search_matches_notebook_oracle_exactly(params, rng):
 @pytest.mark.slow
 def test_perceptual_mode_dispatch(params, rng):
     """perceptual_window_search routes on config.mode."""
-    from stereo_reconstruction_tpu.perceptual import windowed_lpips_search
+    from stereo_reconstruction.perceptual import windowed_lpips_search
 
     h, w, D = 32, 48, 6
     left = jnp.asarray(rng.integers(0, 255, (h, w, 3)), jnp.float32)

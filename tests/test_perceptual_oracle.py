@@ -1,4 +1,4 @@
-"""Config-3 parity: TPU perceptual matcher vs the notebook-semantics oracle.
+"""Config-3 parity: device perceptual matcher vs the notebook-semantics oracle.
 
 The oracle (``perceptual/notebook_oracle.py``) is a literal port of the
 reference notebook's windowed LPIPS search (Perceptual_window_search.ipynb
@@ -14,12 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.config import PerceptualConfig
-from stereo_reconstruction_tpu.perceptual import (
+from stereo_reconstruction.config import PerceptualConfig
+from stereo_reconstruction.perceptual import (
     init_vgg16_params,
     perceptual_window_search,
 )
-from stereo_reconstruction_tpu.perceptual.notebook_oracle import (
+from stereo_reconstruction.perceptual.notebook_oracle import (
     _weight_vector,
     notebook_window_search,
 )
@@ -64,7 +64,7 @@ def test_notebook_rows_consistent_with_full_scan():
     """notebook_rows (scattered-row verification mode, VERDICT r4 #6)
     must reproduce notebook_window_search's rows exactly when fed the
     full scan's own previous-row context."""
-    from stereo_reconstruction_tpu.perceptual.notebook_oracle import (
+    from stereo_reconstruction.perceptual.notebook_oracle import (
         notebook_rows,
     )
 

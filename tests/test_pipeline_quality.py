@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.config import PipelineConfig
-from stereo_reconstruction_tpu.data import MiddEval3
-from stereo_reconstruction_tpu.data.middeval3 import downsample_pair
-from stereo_reconstruction_tpu.pipeline import run_pair
+from stereo_reconstruction.config import PipelineConfig
+from stereo_reconstruction.data import MiddEval3
+from stereo_reconstruction.data.middeval3 import downsample_pair
+from stereo_reconstruction.pipeline import run_pair
 
 BASELINE_BAD2 = 30.65           # reference pipeline output (baselines/)
 BUDGET_PP = 0.5                 # BASELINE.json north-star tolerance

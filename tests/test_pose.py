@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.config import PipelineConfig, RansacConfig
-from stereo_reconstruction_tpu.ops import geometry as geo
-from stereo_reconstruction_tpu.pose import (
+from stereo_reconstruction.config import PipelineConfig, RansacConfig
+from stereo_reconstruction.ops import geometry as geo
+from stereo_reconstruction.pose import (
     bundle_adjust,
     eight_point,
     estimate_pose_from_matches,

@@ -83,10 +83,10 @@ def test_pose_canonical_scenes(fixture):
 @pytest.mark.slow
 def test_pose_live_teddy(middeval_root):
     """Live pose estimate on Teddy must match the known rectified pose."""
-    from stereo_reconstruction_tpu.config import PipelineConfig
-    from stereo_reconstruction_tpu.data import MiddEval3
-    from stereo_reconstruction_tpu.data.middeval3 import downsample_pair
-    from stereo_reconstruction_tpu.pipeline import estimate_pose
+    from stereo_reconstruction.config import PipelineConfig
+    from stereo_reconstruction.data import MiddEval3
+    from stereo_reconstruction.data.middeval3 import downsample_pair
+    from stereo_reconstruction.pipeline import estimate_pose
 
     pair = downsample_pair(MiddEval3(middeval_root).load_training(13))
     pose = estimate_pose(pair, PipelineConfig())

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.ops import geometry as geo
-from stereo_reconstruction_tpu.ops.warp import transform_points, warp_perspective
-from stereo_reconstruction_tpu.rectify import (
+from stereo_reconstruction.ops import geometry as geo
+from stereo_reconstruction.ops.warp import transform_points, warp_perspective
+from stereo_reconstruction.rectify import (
     disparity_to_original_frame,
     loop_zhang_homographies,
     rectify_pair,
@@ -116,7 +116,7 @@ def test_warp_band_matches_gather_bilinear(rng):
     """The gather-free band warp is exact bilinear: it must agree with the
     general gather warp to float tolerance for any homography within its
     band budget (ops/warp.py warp_band)."""
-    from stereo_reconstruction_tpu.ops.warp import band_budget, warp_band
+    from stereo_reconstruction.ops.warp import band_budget, warp_band
 
     img = rng.uniform(0, 255, (60, 80, 3)).astype(np.float32)
     H = np.array([[1.02, 0.03, -2.5], [-0.02, 0.99, 3.2], [4e-5, -3e-5, 1.0]])
@@ -131,7 +131,7 @@ def test_warp_band_matches_gather_bilinear(rng):
 
 
 def test_warp_band_matches_gather_nearest(rng):
-    from stereo_reconstruction_tpu.ops.warp import band_budget, warp_band
+    from stereo_reconstruction.ops.warp import band_budget, warp_band
 
     img = rng.uniform(0, 100, (50, 70)).astype(np.float32)
     H = np.array([[0.98, 0.04, 4.0], [0.01, 1.03, -3.0], [0.0, 0.0, 1.0]])
@@ -147,7 +147,7 @@ def test_warp_band_matches_gather_nearest(rng):
 
 
 def test_band_budget_rejects_large_displacement():
-    from stereo_reconstruction_tpu.ops.warp import band_budget
+    from stereo_reconstruction.ops.warp import band_budget
 
     H = np.array([[1.0, 0.0, 300.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
     # a 300-px shift of a source that stays visible exceeds every class
@@ -206,7 +206,7 @@ def test_band_budget_adversarial_pole_sliver():
     returns the smallest class (2, 2) -> warp_band silently zeros the
     sliver; the certified estimator must detect the pole and return None
     (gather fallback)."""
-    from stereo_reconstruction_tpu.ops.warp import band_budget, warp_band
+    from stereo_reconstruction.ops.warp import band_budget, warp_band
 
     out_shape = src_shape = (100, 400)
     # den = 1 - x/380 - y/95 (pole line x + 4y = 380);
@@ -241,7 +241,7 @@ def test_band_budget_adversarial_pole_sliver():
 def test_band_budget_certified_soundness_fuzz(rng):
     """For random in-budget homographies the certified class must cover
     the true full-grid live displacement with >= 1 px of tap margin."""
-    from stereo_reconstruction_tpu.ops.warp import band_budget
+    from stereo_reconstruction.ops.warp import band_budget
 
     out_shape, src_shape = (80, 120), (70, 110)
     n_checked = 0

@@ -10,17 +10,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.config import BundleAdjustmentConfig, MatcherConfig
-from stereo_reconstruction_tpu.ops import geometry as geo
-from stereo_reconstruction_tpu.ops.block_search import block_search_right
-from stereo_reconstruction_tpu.ops.metrics import evaldisp
-from stereo_reconstruction_tpu.parallel import (
+from stereo_reconstruction.config import BundleAdjustmentConfig, MatcherConfig
+from stereo_reconstruction.ops import geometry as geo
+from stereo_reconstruction.ops.block_search import block_search_right
+from stereo_reconstruction.ops.metrics import evaldisp
+from stereo_reconstruction.parallel import (
     distributed_bundle_adjust,
     make_mesh,
     sharded_block_search_right,
     sharded_evaldisp,
 )
-from stereo_reconstruction_tpu.pose.ba import bundle_adjust
+from stereo_reconstruction.pose.ba import bundle_adjust
 
 
 pytestmark = pytest.mark.skipif(
@@ -42,16 +42,17 @@ def _pair_batch(rng, b=4, h=64, w=96):
 
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
 def test_sharded_block_search_matches_single_device(rng, mesh, backend):
-    """Both cost-volume backends under the tile axis: the production
-    Pallas kernel (global-row-coordinate mode, interpret on CPU) must
-    shard as exactly as the XLA fallback (VERDICT r2 item 1)."""
+    """Both matcher backends under the tile axis: the fused kernel
+    (global-row-coordinate mode, in the Pallas interpreter here) must
+    shard as exactly as the plain XLA path."""
     left, right = _pair_batch(rng)
     cfg = MatcherConfig(block_size=5, min_disparity=0, max_disparity=16,
                         row_smooth_iters=1, backend=backend)
-    sharded = np.asarray(sharded_block_search_right(left, right, mesh, cfg))
+    sharded = np.asarray(sharded_block_search_right(
+        left, right, mesh, cfg, interpret=backend == "pallas"))
 
-    # single-device reference on the XLA path (the Pallas kernel agrees
-    # with it bit-for-bit on integer-valued window sums)
+    # single-device reference on the XLA path (the fused kernel agrees
+    # with it bit-for-bit on integer-valued images)
     cfg_s = MatcherConfig(block_size=5, min_disparity=0, max_disparity=16,
                           row_smooth_iters=1, backend="xla")
     single = np.stack(
@@ -72,8 +73,8 @@ def test_sharded_exact_wavefront_bitwise(rng, mesh, backend):
     left, right = _pair_batch(rng, b=2, h=96, w=96)
     cfg = MatcherConfig(block_size=5, min_disparity=0, max_disparity=16,
                         row_smooth_iters=1, backend=backend)
-    sharded = np.asarray(
-        sharded_block_search_right(left, right, mesh, cfg, exact=True))
+    sharded = np.asarray(sharded_block_search_right(
+        left, right, mesh, cfg, exact=True, interpret=backend == "pallas"))
     cfg_s = MatcherConfig(block_size=5, min_disparity=0, max_disparity=16,
                           row_smooth_iters=1, backend="xla")
     single = np.stack([
@@ -88,8 +89,8 @@ def test_sharded_quality_budget_real_pair(rng, mesh, middeval_root):
     """bad-2.0 budget on a real pair (VERDICT round-1 item 5): the sharded
     matcher must stay within 0.5pp of the single-device result on Teddy,
     scored with the single-device output as ground truth."""
-    from stereo_reconstruction_tpu.data import MiddEval3
-    from stereo_reconstruction_tpu.data.middeval3 import downsample_pair
+    from stereo_reconstruction.data import MiddEval3
+    from stereo_reconstruction.data.middeval3 import downsample_pair
 
     pair = downsample_pair(MiddEval3(middeval_root).load_training(13))
     L = np.asarray(pair.image_left, np.uint8)[:368, :448]
@@ -177,7 +178,7 @@ def test_distributed_ba_batch_matches_per_pair(rng, mesh):
     """B independent problems through the vmapped fused-psum LM must
     match B separate distributed_bundle_adjust calls (VERDICT r3 item 7:
     the amortized-collective production pattern is a pure batching)."""
-    from stereo_reconstruction_tpu.parallel import (
+    from stereo_reconstruction.parallel import (
         distributed_bundle_adjust_batch,
     )
 

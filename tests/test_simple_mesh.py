@@ -6,8 +6,8 @@ showExtrinsicsReconstruction (keypoints.cpp:35-50).
 
 import numpy as np
 
-from stereo_reconstruction_tpu.io.mesh_io import read_off
-from stereo_reconstruction_tpu.recon.simple_mesh import SimpleMesh, show_extrinsics
+from stereo_reconstruction.io.mesh_io import read_off
+from stereo_reconstruction.recon.simple_mesh import SimpleMesh, show_extrinsics
 
 
 def test_sphere_geometry():

@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from stereo_reconstruction_tpu.ops import small_linalg as sl
+from stereo_reconstruction.ops import small_linalg as sl
 
 
 @pytest.fixture

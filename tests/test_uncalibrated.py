@@ -8,8 +8,8 @@ import os
 import numpy as np
 import pytest
 
-from stereo_reconstruction_tpu.config import MatcherConfig, OrbConfig, PipelineConfig
-from stereo_reconstruction_tpu.pipeline_uncalibrated import run_uncalibrated
+from stereo_reconstruction.config import MatcherConfig, OrbConfig, PipelineConfig
+from stereo_reconstruction.pipeline_uncalibrated import run_uncalibrated
 
 
 def _pair(dx=6):
@@ -65,8 +65,8 @@ def test_real_scene_epipolar_alignment(middeval_root):
     ORB+F+Loop-Zhang chain must rectify true correspondences onto common
     scanlines within 2px (the recorded 3-scene record is
     baselines/uncalibrated_eval.json via tools/uncalibrated_eval.py)."""
-    from stereo_reconstruction_tpu.data import MiddEval3
-    from stereo_reconstruction_tpu.data.middeval3 import downsample_pair
+    from stereo_reconstruction.data import MiddEval3
+    from stereo_reconstruction.data.middeval3 import downsample_pair
 
     pair = downsample_pair(downsample_pair(
         MiddEval3(middeval_root).load_training(13)))

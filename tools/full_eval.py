@@ -72,9 +72,9 @@ def matcher_parity(rect_l, rect_r, max_disparity=100, block_size=17):
     """
     import jax.numpy as jnp
 
-    from stereo_reconstruction_tpu import oracle
-    from stereo_reconstruction_tpu.config import MatcherConfig
-    from stereo_reconstruction_tpu.ops.block_search import block_search_right
+    from stereo_reconstruction import oracle
+    from stereo_reconstruction.config import MatcherConfig
+    from stereo_reconstruction.ops.block_search import block_search_right
 
     t0 = time.time()
     od = oracle.block_search_right_fast(
@@ -101,7 +101,7 @@ def matcher_parity(rect_l, rect_r, max_disparity=100, block_size=17):
 
 def baseline_for(pair, idx, force=False):
     """Reference reproduction, cached to baselines/."""
-    from stereo_reconstruction_tpu.io.pfm import read_pfm, write_pfm
+    from stereo_reconstruction.io.pfm import read_pfm, write_pfm
 
     stem = os.path.join(BASELINES, f"{pair.name}_ds1")
     pfm = stem + "_baseline_disp.pfm"
@@ -139,8 +139,8 @@ def main():
     args = ap.parse_args()
 
     if args.crop:
-        from stereo_reconstruction_tpu.data import MiddEval3
-        from stereo_reconstruction_tpu.data.middeval3 import downsample_pair
+        from stereo_reconstruction.data import MiddEval3
+        from stereo_reconstruction.data.middeval3 import downsample_pair
 
         idx = int(args.scenes) if args.scenes else 13   # Teddy
         pair = downsample_pair(MiddEval3(args.data).load_training(idx))
@@ -151,10 +151,10 @@ def main():
         print(json.dumps(rec))
         return
 
-    from stereo_reconstruction_tpu.config import PipelineConfig
-    from stereo_reconstruction_tpu.data import MiddEval3
-    from stereo_reconstruction_tpu.data.middeval3 import downsample_pair
-    from stereo_reconstruction_tpu.pipeline import run_pair
+    from stereo_reconstruction.config import PipelineConfig
+    from stereo_reconstruction.data import MiddEval3
+    from stereo_reconstruction.data.middeval3 import downsample_pair
+    from stereo_reconstruction.pipeline import run_pair
 
     ds = MiddEval3(args.data)
     n_scenes = ds.num_training
@@ -222,7 +222,7 @@ def main():
         # rectification run-to-run variance.
         if brec is not None and brec.get("pose"):
             import cv2
-            from stereo_reconstruction_tpu.rectify.loop_zhang import (
+            from stereo_reconstruction.rectify.loop_zhang import (
                 loop_zhang_homographies,
             )
 

@@ -5,9 +5,10 @@ SCALING.json measures sharding efficiency inside ONE process on a virtual
 device mesh; this tool runs the same sharded entry points across REAL
 separate processes joined with ``jax.distributed`` — each pinned to its
 own CPU core, 1 XLA CPU device per process, all cross-process traffic
-through XLA collectives on the Gloo backend (the CPU stand-in for
-ICI/DCN; the program is identical on a TPU pod, SURVEY.md §5
-"Distributed communication backend").
+through XLA collectives on the Gloo backend (the CPU stand-in for NCCL
+over NVLink; the program is identical on GPU hosts, SURVEY.md §5
+"Distributed communication backend"). Children stay on the CPU, so
+several processes never open one card.
 
 Workloads (all through ``parallel.multihost`` + the production sharded
 entry points):
@@ -61,12 +62,14 @@ def _git_hash():
 
 def child_main(n: int, proc: int, port: int) -> None:
     os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.path.insert(0, REPO)
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    sys.path.insert(0, REPO)
+    from stereo_reconstruction.utils import compile_cache
 
-    from stereo_reconstruction_tpu.parallel import multihost
+    compile_cache.enable()
+
+    from stereo_reconstruction.parallel import multihost
 
     multihost.initialize(f"127.0.0.1:{port}", n, proc)
     assert jax.process_count() == n and jax.local_device_count() == 1
@@ -76,14 +79,14 @@ def child_main(n: int, proc: int, port: int) -> None:
     from jax.experimental import multihost_utils
     from jax.sharding import PartitionSpec as P
 
-    from stereo_reconstruction_tpu.config import (
+    from stereo_reconstruction.config import (
         BundleAdjustmentConfig,
         MatcherConfig,
     )
-    from stereo_reconstruction_tpu.ops import geometry as geo
-    from stereo_reconstruction_tpu.ops.block_search import block_search_right
-    from stereo_reconstruction_tpu.ops.metrics import evaldisp
-    from stereo_reconstruction_tpu.parallel import (
+    from stereo_reconstruction.ops import geometry as geo
+    from stereo_reconstruction.ops.block_search import block_search_right
+    from stereo_reconstruction.ops.metrics import evaldisp
+    from stereo_reconstruction.parallel import (
         distributed_bundle_adjust,
         distributed_bundle_adjust_batch,
         sharded_block_search_right,
@@ -339,8 +342,8 @@ def main():
         # With more processes than physical cores the processes time-slice
         # the cores, so the compute-bound weak-scaling ceiling is
         # cores/n, not 1.0 — record the raw number AND the ceiling so the
-        # oversubscribed groups are honest (a TPU pod has a chip per
-        # process; this host has 2 cores).
+        # oversubscribed groups are honest (a GPU host has a card per
+        # process; this measurement shares the host's cores).
         ceiling = min(n, ncores) / n
         return {
             # weak scaling: same per-process work

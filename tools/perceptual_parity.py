@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""BASELINE config 3 quality: TPU perceptual matcher vs the notebook oracle.
+"""BASELINE config 3 quality: the perceptual matcher vs the notebook oracle.
 
 Runs the literal-semantics port of the reference notebook's windowed
 LPIPS search (``perceptual/notebook_oracle.py``, cells 6-10) and BOTH
-TPU re-designs (``perceptual/cost.py``) on a real MiddEval3 crop with
+re-designs (``perceptual/cost.py``) on a real MiddEval3 crop with
 IDENTICAL VGG weights:
 
   * ``windowed`` — per-window VGG embeddings, the notebook's exact
@@ -42,14 +42,14 @@ DATA_ROOT = "/root/reference/data/MiddEval3"
 def main():
     import jax.numpy as jnp
 
-    from stereo_reconstruction_tpu.config import PerceptualConfig
-    from stereo_reconstruction_tpu.data import MiddEval3
-    from stereo_reconstruction_tpu.data.middeval3 import downsample_pair
-    from stereo_reconstruction_tpu.perceptual import (
+    from stereo_reconstruction.config import PerceptualConfig
+    from stereo_reconstruction.data import MiddEval3
+    from stereo_reconstruction.data.middeval3 import downsample_pair
+    from stereo_reconstruction.perceptual import (
         get_params,
         perceptual_window_search,
     )
-    from stereo_reconstruction_tpu.perceptual.notebook_oracle import (
+    from stereo_reconstruction.perceptual.notebook_oracle import (
         notebook_window_search,
     )
 

@@ -35,11 +35,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from stereo_reconstruction_tpu import oracle  # noqa: E402
-from stereo_reconstruction_tpu.data import MiddEval3  # noqa: E402
-from stereo_reconstruction_tpu.data.middeval3 import downsample_pair  # noqa: E402
-from stereo_reconstruction_tpu.io.pfm import write_pfm  # noqa: E402
-from stereo_reconstruction_tpu.rectify.loop_zhang import loop_zhang_homographies  # noqa: E402
+from stereo_reconstruction import oracle  # noqa: E402
+from stereo_reconstruction.data import MiddEval3  # noqa: E402
+from stereo_reconstruction.data.middeval3 import downsample_pair  # noqa: E402
+from stereo_reconstruction.io.pfm import write_pfm  # noqa: E402
+from stereo_reconstruction.rectify.loop_zhang import loop_zhang_homographies  # noqa: E402
 
 
 # ---------------------------------------------------------------------------
@@ -260,8 +260,8 @@ def run_reference_baseline(pair, downsample: int, max_disparity: int = 0,
         import dataclasses
         import jax.numpy as jnp
 
-        from stereo_reconstruction_tpu.config import BundleAdjustmentConfig
-        from stereo_reconstruction_tpu.pose.ba import bundle_adjust
+        from stereo_reconstruction.config import BundleAdjustmentConfig
+        from stereo_reconstruction.pose.ba import bundle_adjust
 
         res = bundle_adjust(
             jnp.asarray(kp_l[:, sel], jnp.float32),

@@ -39,10 +39,10 @@ def main():
 
     import jax
 
-    from stereo_reconstruction_tpu.config import PipelineConfig
-    from stereo_reconstruction_tpu.data import MiddEval3
-    from stereo_reconstruction_tpu.data.middeval3 import downsample_pair
-    from stereo_reconstruction_tpu.pipeline_uncalibrated import run_uncalibrated
+    from stereo_reconstruction.config import PipelineConfig
+    from stereo_reconstruction.data import MiddEval3
+    from stereo_reconstruction.data.middeval3 import downsample_pair
+    from stereo_reconstruction.pipeline_uncalibrated import run_uncalibrated
 
     ds = MiddEval3(DATA_ROOT)
     cfg = PipelineConfig()
